@@ -73,7 +73,7 @@ class CameraConfig:
 class ORBConfig:
     """ORB extractor parameters (reference src/Tracking.cc:64-82).
 
-    n_features is padded up to a multiple of 128 internally for MXU-friendly
+    n_features is padded up to a multiple of 128 internally for tile-friendly
     static shapes; `valid` masks carry the true count.
     """
 

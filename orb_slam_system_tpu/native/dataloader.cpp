@@ -2,7 +2,7 @@
 // prefetching.
 //
 // The reference's image IO is OpenCV imread on the driver thread
-// (Examples/Monocular/mono_tum.cc:73). For a TPU pipeline the host must
+// (Examples/Monocular/mono_tum.cc:73). For an accelerator pipeline the host must
 // keep the device fed; this loader decodes and grayscale-converts frames on
 // background threads with a bounded ring of prefetched images, so tracking
 // never stalls on IO. Exposed as a C ABI consumed via ctypes

@@ -16,12 +16,14 @@ Design notes:
   * Rotation: test offsets are rotated by the keypoint angle with the same
     round-to-integer semantics as the reference's GET_VALUE macro, i.e.
     x' = round(x cos - y sin), y' = round(x sin + y cos).
-  * All keypoints' 512 lookups are one take_along_axis gather from the
-    already-gathered blurred patch [B,N,P,P]; the comparison and bit packing
-    are dense VPU ops producing uint32[B,N,8].
+  * The 256 tests of a keypoint are one contraction of its blurred patch
+    [P*P] with its angle bin's +/-1 test matrix; the sign test and bit
+    packing are dense elementwise ops producing uint32[B,N,8].
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +46,7 @@ def make_pattern() -> np.ndarray:
 
 _PATTERN = make_pattern()
 
-# Angle quantization for the MXU descriptor path: 32 bins (11.25 deg). The
+# Angle quantization for the matmul descriptor path: 32 bins (11.25 deg). The
 # rotated test offsets are integer-rounded anyway (sub-pixel precision is
 # already quantized); bin-center rotation changes offsets by < 1px for the
 # typical |offset| ~ 6px, on par with the rounding the reference applies.
@@ -100,6 +102,7 @@ def compute_descriptors_dense(patches: jnp.ndarray,
     E = jnp.asarray(_E_BINNED, jnp.bfloat16)                   # [A,PP,256]
     # diffs[a, b*n, bit] = patch . E[a]  -> select per-keypoint bin.
     diffs = jnp.einsum("bnp,apc->banc", flat, E,
+                       precision=jax.lax.Precision.DEFAULT,
                        preferred_element_type=jnp.float32)     # [B,A,N,256]
     sel = jnp.take_along_axis(
         diffs, bins[:, None, :, None].astype(jnp.int32), axis=1)[:, 0]
@@ -110,13 +113,19 @@ def compute_descriptors_dense(patches: jnp.ndarray,
 # Chunk size for the binned-sort descriptor path: keypoints sorted by angle
 # bin are processed in single-bin chunks of CHUNK rows, so each chunk
 # contracts against ONE [P*P, 256] test matrix instead of all 32 (the dense
-# einsum above computes 32x the needed FLOPs and was the extractor's
-# hottest op after the r2 kernel round).
+# einsum above computes 32x the needed FLOPs).
 CHUNK = 128
 
-# Test hook: force the binned-chunk path on non-TPU backends (CPU equality
-# tests vs the dense oracle).
-FORCE_BINNED = False
+PP = (2 * PATCH_RADIUS + 1) ** 2             # 1369
+PP_PAD = -(-PP // 128) * 128                 # 1408: 128-aligned contraction
+
+
+@functools.lru_cache(maxsize=1)
+def _e_padded() -> np.ndarray:
+    """[A, PP_PAD, 256] bf16 test matrices, zero rows in the padding."""
+    e = np.zeros((N_ANGLE_BINS, PP_PAD, N_BITS), dtype=_E_BINNED.dtype)
+    e[:, :PP] = _E_BINNED
+    return e
 
 
 def _chunk_layout(bins_flat: jnp.ndarray, n_chunks: int):
@@ -126,10 +135,9 @@ def _chunk_layout(bins_flat: jnp.ndarray, n_chunks: int):
     bins_flat: i32[M]. Returns (padded_idx i32[n_chunks*CHUNK] with M as
     the dummy row id, chunk_bin i32[n_chunks], slot_of i32[M])."""
     M = bins_flat.shape[0]
-    # Rank-within-bin via one-hot prefix sum: no argsort needed (lax sort
-    # of M keys was ~1.9 ms on TPU). The [M, A] cumsum runs as a two-level
-    # scan (within 512-row groups + group offsets) — one 8192-long scan
-    # was ~1.5 ms of the descriptor path on TPU.
+    # Rank-within-bin via one-hot prefix sum: no argsort needed. The
+    # [M, A] cumsum runs as a two-level scan (within 512-row groups +
+    # group offsets) instead of one M-long scan.
     oh = (bins_flat[:, None]
           == jnp.arange(N_ANGLE_BINS, dtype=jnp.int32)[None, :])
     ohi = oh.astype(jnp.int32)
@@ -163,41 +171,33 @@ def compute_descriptors(patches: jnp.ndarray, angles: jnp.ndarray) -> jnp.ndarra
     """patches: f32[B,N,P,P] from the *blurred* level image, P=2*18+1=37;
     angles: f32[B,N] radians. Returns uint32[B,N,8] packed descriptors.
 
-    MXU formulation: instead of 512 rotated scalar gathers per keypoint
-    (gather-bound on TPU), keypoints are sorted by angle bin and processed
-    in single-bin chunks, each one a [CHUNK, P*P] @ [P*P, 256] bf16 matmul
-    against that bin's static +/-1 test matrix (SURVEY.md §7.1 MXU-first
-    rule). Bit-identical to compute_descriptors_dense: same per-keypoint
+    Matmul formulation: instead of 512 rotated scalar gathers per
+    keypoint, keypoints are sorted by angle bin and processed in
+    single-bin chunks, each one a [CHUNK, P*P] @ [P*P, 256] bf16 matmul
+    (f32 accumulation) against that bin's static +/-1 test matrix.
+    Bit-identical to compute_descriptors_dense: same per-keypoint
     contraction, just without materializing the 31 unused bins."""
     B, N, P, _ = patches.shape
     assert P == 2 * PATCH_RADIUS + 1
-    if jax.default_backend() != "tpu" and not FORCE_BINNED:
-        # The chunk layout + per-chunk matmuls only pay off on the MXU;
-        # bit-identical to the dense oracle (asserted in tests).
-        return compute_descriptors_dense(patches, angles)
     M = B * N
     # Worst-case chunk count: full occupancy + one partial chunk per bin.
     n_chunks = -(-M // CHUNK) + N_ANGLE_BINS
     bins = _angle_bins(angles).reshape(M)
     padded_idx, chunk_bin, slot_of = _chunk_layout(bins, n_chunks)
-    from orb_slam_system_tpu.ops import brief_pallas
-    # Row width padded to the lane-aligned 1408 BEFORE the bin-sort row
+    # Row width padded to the 128-aligned 1408 BEFORE the bin-sort row
     # gather (the padding columns are zero and the test matrices carry
     # zero rows there, so the contraction is unchanged): the gather then
-    # moves 128-multiple rows, the layout Mosaic/XLA transfer vector
-    # units want, and the pallas path needs no second padding pass.
+    # moves 128-multiple rows and the matmul sees an aligned depth.
     flat = patches.reshape(M, P * P).astype(jnp.bfloat16)
-    flat = jnp.pad(flat, ((0, 1), (0, brief_pallas.PP_PAD - P * P)))
+    flat = jnp.pad(flat, ((0, 1), (0, PP_PAD - P * P)))
     p_sorted = flat[padded_idx]                 # [S, PP_PAD] row gather
-    if brief_pallas.use_pallas():
-        diffs = brief_pallas.binned_diffs_pallas(p_sorted, chunk_bin)
-    else:
-        E = jnp.asarray(brief_pallas._e_padded())  # [A,PP_PAD,256] bf16
-        diffs = jnp.einsum(
-            "kcp,kpq->kcq",
-            p_sorted.reshape(n_chunks, CHUNK, brief_pallas.PP_PAD),
-            E[chunk_bin],
-            preferred_element_type=jnp.float32).reshape(-1, N_BITS)
+    E = jnp.asarray(_e_padded())                # [A, PP_PAD, 256] bf16
+    diffs = jnp.einsum(
+        "kcp,kpq->kcq",
+        p_sorted.reshape(n_chunks, CHUNK, PP_PAD),
+        E[chunk_bin],
+        precision=jax.lax.Precision.DEFAULT,
+        preferred_element_type=jnp.float32).reshape(-1, N_BITS)
     # Pack BEFORE unsorting: the bit-pack commutes with the row
     # permutation, so the unsort gather moves [M,8] u32 words instead of
     # [M,256] bit columns (32x less data through the gather).

@@ -12,7 +12,6 @@ per-octave sigma2 follow the reference's scale pyramid semantics.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -88,27 +87,9 @@ class ORBExtractor:
         self.sigma2 = (self.scales ** 2).astype(np.float32)
         self.inv_sigma2 = (1.0 / self.sigma2).astype(np.float32)
         self.cell = cell
-        # FAST score: fused Pallas kernel on TPU, XLA formulation elsewhere
-        # (identical contract; see ops/fast_pallas.py).
-        from orb_slam_system_tpu.ops import fast_pallas, gather_pallas
-        if fast_pallas.use_pallas():
-            # Pallas path fuses 3x3 NMS into the score kernel.
-            self._score_fn = lambda lvl, border: fast_pallas.fast_score_map_pallas(
-                lvl, border, nms=True)
-            self._pre_nms = True
-        else:
-            self._score_fn = lambda lvl, border: fast_ops.fast_score_map(
-                lvl, border=border)
-            self._pre_nms = False
-        if gather_pallas.use_pallas():
-            self._gather_fn = gather_pallas.gather_patches_pallas
-            self._fused_gather = True
-        else:
-            self._gather_fn = gather_patches
-            self._fused_gather = False
         # All-level gather canvas geometry: each reflect-padded level is
-        # stacked at an 8-aligned row offset so ONE kernel call gathers
-        # every level's patches (see _extract).
+        # stacked at an 8-aligned row offset so ONE gather extracts every
+        # level's patches (see _extract).
         shapes = pyr_ops.level_shapes(height, width, cfg.n_levels,
                                       cfg.scale_factor)
         offs, rows = [], 0
@@ -131,16 +112,14 @@ class ORBExtractor:
         R_G = PATCH_RADIUS + 3
         xs, resps, valids, octs, xy_gather = [], [], [], [], []
         active = [l for l in range(len(levels)) if self.budgets[l] > 0]
-        # ALL levels' keypoint selection in ONE fused program (stacked
-        # cell grids + per-row budgets); 8 sequential per-level selects
-        # were dispatch-bound on TPU.
+        # ALL levels' keypoint selection inside the one extraction program.
         selections = fast_ops.select_keypoints_multi(
-            [self._score_fn(levels[l], EDGE_MARGIN) for l in active],
+            [fast_ops.fast_score_map(levels[l], border=EDGE_MARGIN)
+             for l in active],
             [self.budgets[l] for l in active],
             ini_th=float(cfg.ini_th_fast),
             min_th=float(cfg.min_th_fast),
             cell=self.cell,
-            pre_nms=self._pre_nms,
         )
         for l, (xy_l, resp, valid) in zip(active, selections):
             # Per-level gather coordinates in the all-level canvas (below):
@@ -153,11 +132,10 @@ class ORBExtractor:
             octs.append(jnp.full(resp.shape, l, jnp.int32))
         # ONE patch gather for ALL levels: the reflect-padded levels are
         # stacked into a single canvas (8-aligned row offsets) so a single
-        # kernel call extracts every 43x43 patch (radius 21 = descriptor
-        # radius 18 + blur halo 3); per-level kernel launches starved the
-        # DMA pipeline. The patch serves both the IC-angle moments (center
-        # 31x31) and, after the in-patch separable 7x7 blur, the rBRIEF
-        # window — replacing two gathers + an image-wide blur.
+        # gather extracts every 43x43 patch (radius 21 = descriptor radius
+        # 18 + blur halo 3). The patch serves both the IC-angle moments
+        # (center 31x31) and, after the in-patch separable 7x7 blur, the
+        # rBRIEF window, replacing two gathers and an image-wide blur.
         canvas = jnp.zeros((B, self._canvas_rows, self._canvas_cols),
                            img.dtype)
         for l, lvl in enumerate(levels):
@@ -165,21 +143,12 @@ class ORBExtractor:
             canvas = jax.lax.dynamic_update_slice(
                 canvas, padded, (0, self._canvas_offs[l], 0))
         xy_all = jnp.concatenate(xy_gather, axis=1)        # [B, N_all, 2]
-        if self._fused_gather:
-            # Gather + in-VMEM blur + IC moments in ONE Pallas kernel: the
-            # raw 43x43 patch never round-trips through HBM.
-            from orb_slam_system_tpu.ops import gather_pallas
-            from orb_slam_system_tpu.ops.orientation import angles_from_moments
-            patches_d, mom = gather_pallas.gather_blur_moments_pallas(
-                canvas, xy_all, R_G)
-            ang = angles_from_moments(mom)
-        else:
-            patches_g = self._gather_fn(canvas, xy_all, R_G)  # [B,N_all,P,P]
-            c0 = (PATCH_RADIUS + 3) - HALF_PATCH
-            patches_o = patches_g[:, :, c0:c0 + 2 * HALF_PATCH + 1,
-                                  c0:c0 + 2 * HALF_PATCH + 1]
-            ang = ic_angles(patches_o)
-            patches_d = _blur_patches(patches_g)
+        patches_g = gather_patches(canvas, xy_all, R_G)    # [B,N_all,P,P]
+        c0 = (PATCH_RADIUS + 3) - HALF_PATCH
+        patches_o = patches_g[:, :, c0:c0 + 2 * HALF_PATCH + 1,
+                              c0:c0 + 2 * HALF_PATCH + 1]
+        ang = ic_angles(patches_o)
+        patches_d = _blur_patches(patches_g)
         desc = compute_descriptors(patches_d, ang)
         return FeatureSet(
             xy=jnp.concatenate(xs, axis=1),

@@ -5,10 +5,11 @@ DistributeOctTree (src/ORBextractor.cc:228-357): 30px-cell FAST with
 ini/min thresholds (20 -> 7 fallback per cell) and quad-tree culling to
 per-level budgets.
 
-TPU design (SURVEY.md §7.1):
+Design (SURVEY.md §7.1):
   * The 16-pixel Bresenham circle test is evaluated densely for the whole
-    image as vectorized VPU ops (16 shifted views, circular windowed min via
-    log-step reductions) — no scalar loops, no data-dependent shapes.
+    image as vectorized elementwise ops (16 shifted views, circular windowed
+    min via log-step reductions) — no scalar loops, no data-dependent
+    shapes; XLA fuses the chain into a few loop kernels.
   * The per-pixel *score* is the exact FAST-9 corner threshold: the largest t
     for which the pixel is still a corner. One dense score map serves both
     thresholds (corner@t <=> score > t) and NMS, replacing the reference's
@@ -40,12 +41,9 @@ CIRCLE = np.array(
 
 ARC_LEN = 9  # FAST-9: contiguous arc of >= 9 circle pixels
 
-# Global top-N strategy on TPU. round 2 replaced lax.top_k with the radix
-# threshold select (_top_n_select_rows) when top_k was the hottest op; a
-# round-3 same-window ablation at the FUSED multi-level shape ([64, 4800]
-# -> 241) measured lax.top_k ~2x faster than the radix (whose cost is the
-# cumsum/scatter compaction tail, not the kth search) — so top_k is the
-# default again, with the radix kept A/B-able (tools/tpu_select_ablate.py).
+# Global top-N strategy: lax.top_k per level. The radix threshold select
+# (_top_n_select_rows) is the alternative layout, selected by setting this
+# to False.
 TOPK_SELECT = True
 
 
@@ -143,7 +141,7 @@ def _top_n_select_rows(key: jnp.ndarray, n_rows: jnp.ndarray, n_out: int):
 
     # Nibble radix: find each row's n-th largest bit pattern in 8 histogram
     # passes instead of 32 bit passes (each pass is a sequential [R, M]
-    # reduce on the VPU; 4x fewer passes is a direct latency win). Per
+    # reduce; 4x fewer passes is a direct latency win). Per
     # pass, bucket the next 4 bits of every element still matching the
     # prefix, then pick the largest nibble whose >=-count reaches the
     # row budget — identical threshold semantics to the bitwise search.
@@ -204,7 +202,7 @@ def _top_n_select(key: jnp.ndarray, n: int):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_max", "cell", "topk_per_cell", "border", "pre_nms"),
+    static_argnames=("n_max", "cell", "topk_per_cell", "border"),
 )
 def select_keypoints(
     score: jnp.ndarray,
@@ -214,7 +212,6 @@ def select_keypoints(
     cell: int = 16,
     topk_per_cell: int = 4,
     border: int = 19,
-    pre_nms: bool = False,
 ):
     """Spatially-uniform top-n_max keypoint selection from a dense score map.
 
@@ -229,11 +226,9 @@ def select_keypoints(
     """
     B = score.shape[0]
     vals, idx, hc, wc = _cell_candidates(score, ini_th, min_th, cell,
-                                         topk_per_cell, pre_nms)
+                                         topk_per_cell)
     flat_key = _order_key(vals, topk_per_cell).reshape(B, -1)
-    if jax.default_backend() == "tpu" and not TOPK_SELECT:
-        # Radix threshold select (kept A/B-able: at the fused multi-level
-        # shape lax.top_k measured FASTER in round 3 — see TOPK_SELECT).
+    if not TOPK_SELECT:
         flat_idx, top_vals, filled = _top_n_select(flat_key, n_max)
     else:
         top_vals, flat_idx = jax.lax.top_k(flat_key, n_max)
@@ -243,13 +238,13 @@ def select_keypoints(
                              wc_rows, cell, topk_per_cell)
 
 
-def _cell_candidates(score, ini_th, min_th, cell, topk_per_cell, pre_nms):
+def _cell_candidates(score, ini_th, min_th, cell, topk_per_cell):
     """Dense score map -> per-cell top-K candidates.
 
     Returns (vals f32[B,C,K], idx i32[B,C,K] in-cell flat position, hc, wc).
     """
     B, H, W = score.shape
-    s = score if pre_nms else nms3x3(score)
+    s = nms3x3(score)
     # Threshold logic: weak corners only count in cells with no strong corner.
     Hp = ((H + cell - 1) // cell) * cell
     Wp = ((W + cell - 1) // cell) * cell
@@ -261,9 +256,9 @@ def _cell_candidates(score, ini_th, min_th, cell, topk_per_cell, pre_nms):
     has_strong = cell_max > ini_th
     eligible = jnp.where(has_strong, cells > ini_th, cells > min_th)
     cells = jnp.where(eligible, cells, 0.0)
-    # Per-cell top-K by K iterative max+mask passes: lax.top_k sorts each
-    # 256-element cell (the extractor's single hottest op on TPU); K cheap
-    # VPU max-reductions find the same K best responses.
+    # Per-cell top-K by K iterative max+mask passes: K cheap max-reductions
+    # find the same K best responses as a lax.top_k sort of each
+    # 256-element cell.
     vals_l, idx_l = [], []
     remaining = cells
     pos = jnp.arange(cells.shape[-1], dtype=jnp.int32)
@@ -319,7 +314,6 @@ def select_keypoints_multi(
     min_th: float,
     cell: int = 16,
     topk_per_cell: int = 4,
-    pre_nms: bool = False,
 ):
     """select_keypoints over ALL pyramid levels in ONE fused program.
 
@@ -327,7 +321,7 @@ def select_keypoints_multi(
     The per-level candidate grids are padded to a common cell count and
     stacked level-major into rows of one radix select with PER-ROW budgets
     (_top_n_select_rows) — replacing 8 sequential per-level select chains
-    (the per-level dispatch overhead was most of their cost on TPU).
+    and their per-level dispatches.
 
     Returns per-level lists (xy i32[B,n_l,2], resp f32[B,n_l],
     valid bool[B,n_l]) — identical contract to per-level select_keypoints.
@@ -339,13 +333,12 @@ def select_keypoints_multi(
         # the one jitted program, so there is no per-level dispatch cost):
         # the fused-row formulation pads every level's candidates to the
         # level-0 cell count, so its single top_k sorts ~3x more keys,
-        # ~90% of them padding on the upper levels — a same-window round-5
-        # A/B measured per-level ~0.5 ms faster at the real shapes. The
-        # fused rows remain the radix path's layout below.
+        # ~90% of them padding on the upper levels. The fused rows remain
+        # the radix path's layout below.
         out = []
         for s, n_max in zip(scores, budgets):
             vals, idx, hc, wc = _cell_candidates(s, ini_th, min_th, cell,
-                                                 K, pre_nms)
+                                                 K)
             flat_key = _order_key(vals, K).reshape(B, -1)
             top_vals, flat_idx = jax.lax.top_k(flat_key, n_max)
             filled = jnp.ones_like(flat_idx, bool)
@@ -353,8 +346,7 @@ def select_keypoints_multi(
             out.append(_decode_selection(flat_idx, top_vals, filled, vals,
                                          idx, wc_rows, cell, K))
         return out
-    per = [_cell_candidates(s, ini_th, min_th, cell, K, pre_nms)
-           for s in scores]
+    per = [_cell_candidates(s, ini_th, min_th, cell, K) for s in scores]
     C_max = max(v.shape[1] for v, _, _, _ in per)
     vals = jnp.stack([jnp.pad(v, ((0, 0), (0, C_max - v.shape[1]), (0, 0)))
                       for v, _, _, _ in per])                # [L,B,C_max,K]
@@ -367,13 +359,7 @@ def select_keypoints_multi(
     flat_key = _order_key(vals, K).reshape(R, -1)
     n_rows = jnp.asarray(np.repeat(np.asarray(budgets, np.int32), B))
     n_out = int(max(budgets))
-    if jax.default_backend() == "tpu" and not TOPK_SELECT:
-        flat_idx, top_vals, filled = _top_n_select_rows(flat_key, n_rows,
-                                                        n_out)
-    else:
-        top_vals, flat_idx = jax.lax.top_k(flat_key, n_out)
-        filled = (jnp.arange(n_out, dtype=jnp.int32)[None, :]
-                  < n_rows[:, None])
+    flat_idx, top_vals, filled = _top_n_select_rows(flat_key, n_rows, n_out)
     wc_rows = jnp.asarray(np.repeat(
         np.asarray([wc for _, _, _, wc in per], np.int32), B))
     xy, resp, valid = _decode_selection(flat_idx, top_vals, filled, vals,

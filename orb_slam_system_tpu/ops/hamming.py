@@ -1,14 +1,14 @@
 """256-bit Hamming distance kernels.
 
 Replaces reference ORBmatcher::DescriptorDistance (src/ORBmatcher.cc:896-908,
-SWAR popcount over 8 uint32 words) with two TPU-native paths:
+SWAR popcount over 8 uint32 words) with two dense paths:
 
-  * `distance_matrix` — the hot path: popcount-as-matmul on the MXU.
+  * `distance_matrix` — the hot path: popcount-as-matmul.
     Descriptors are unpacked to +/-1 int8 vectors; for 256-bit strings,
     dot(a, b) = 256 - 2*hamming, so D = (256 - A @ B^T) / 2 runs as an int8
-    matmul with int32 accumulation, exactly the MXU's native mixed-precision
-    contraction (SURVEY.md §7.1).
-  * `distance_pairwise` — SWAR popcount on the VPU for elementwise pairs.
+    matmul with int32 accumulation (exact; an integer tensor-core contraction
+    on the GPU, so no float precision setting applies) (SURVEY.md §7.1).
+  * `distance_pairwise` — SWAR popcount for elementwise pairs.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def to_pm1_int8(desc: jnp.ndarray) -> jnp.ndarray:
 
 
 def distance_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
-    """All-pairs Hamming distances via MXU matmul.
+    """All-pairs Hamming distances via an int8 matmul.
 
     desc_a: uint32[N1, 8]; desc_b: uint32[N2, 8] -> int32[N1, N2].
     """

@@ -4,9 +4,9 @@ Replaces reference IC_Angle (src/ORBextractor.cc:21-48): moments m01/m10 over
 a circular patch of radius 15 (HALF_PATCH_SIZE, src/ORBextractor.cc:17) whose
 per-row extent is the umax table built in the ctor (:155-169).
 
-TPU design: the circular mask times coordinate grids become two constant
+Design: the circular mask times coordinate grids become two constant
 [31,31] weight matrices; the angle for all keypoints is two batched weighted
-sums over gathered patches — pure VPU reductions, no per-keypoint loops.
+sums over gathered patches, no per-keypoint loops.
 """
 
 from __future__ import annotations
@@ -67,12 +67,12 @@ def ic_angles(patches: jnp.ndarray) -> jnp.ndarray:
     there; radians here, converted where needed).
 
     The two masked moment sums run as one [B*N, P*P] @ [P*P, 2] matmul
-    (MXU) instead of broadcast-multiply reductions."""
+    instead of broadcast-multiply reductions."""
     B, N, P, _ = patches.shape
     Wm = jnp.asarray(np.stack([_WX.reshape(-1), _WY.reshape(-1)], axis=1))
     # HIGHEST precision: the moments are a cancellation-heavy +-15-weighted
-    # sum; default TPU bf16 matmul input rounding shifts angles materially
-    # on low-texture patches (the Pallas fused kernel computes them in f32).
+    # sum; reduced-precision (TF32/bf16) input rounding shifts angles
+    # materially on low-texture patches.
     m = jnp.einsum("bnp,pk->bnk", patches.reshape(B, N, P * P), Wm,
                    precision=jax.lax.Precision.HIGHEST)   # [B,N,2]
     ang = jnp.arctan2(m[..., 1], m[..., 0])

@@ -5,10 +5,10 @@ Replaces reference ORBextractor::ComputePyramid (src/ORBextractor.cc:497-515,
 sigma=2 GaussianBlur applied before descriptor computation
 (src/ORBextractor.cc:472-494).
 
-TPU design: every level has a static shape derived from the config at trace
-time; resize is jax.image.resize (lowers to XLA gather/dot fusions); blur is a
-separable depthwise convolution (two 1-D convs) which XLA maps onto the
-MXU/VPU efficiently. All ops carry a leading batch axis.
+Design: every level has a static shape derived from the config at trace
+time; resize is a pair of small dense matmuls; blur is a separable depthwise
+convolution (two 1-D passes of shifted adds). All ops carry a leading batch
+axis.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
     """Bilinear resampling as a constant [n_out, n_in] matrix (half-pixel
     centers, clamped edges — the same mapping as jax.image.resize
     method='linear' antialias=False and cv::resize INTER_LINEAR). Two
-    nonzeros per row; applied as a dense matmul, which the MXU eats for
-    free while a gather-based resize is the extractor's dominant cost."""
+    nonzeros per row; applied as a dense matmul, which is cheap at
+    pyramid sizes and avoids a gather-based resize."""
     x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
     x = np.clip(x, 0.0, n_in - 1)
     x0 = np.floor(x).astype(np.int64)
@@ -48,14 +48,14 @@ def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
     return M
 
 
-def resize_bilinear_mxu(img: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
-    """Separable bilinear resize of f32[B, H, W] to [B, h, w] as two MXU
+def resize_bilinear_matmul(img: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
+    """Separable bilinear resize of f32[B, H, W] to [B, h, w] as two
     matmuls: out = Ry @ img @ Rx^T.
 
-    HIGHEST precision: at the TPU default (bf16 passes) each level picks
-    up ~0.5-greylevel error that CASCADES down the pyramid (levels resize
-    from the previous level), visibly perturbing FAST scores vs the CPU
-    backend; full-f32 costs ~nothing at pyramid sizes."""
+    HIGHEST precision: at reduced precision (TF32/bf16 inputs) each level
+    picks up ~0.5-greylevel error that CASCADES down the pyramid (levels
+    resize from the previous level), visibly perturbing FAST scores vs the
+    CPU backend; full-f32 costs ~nothing at pyramid sizes."""
     import jax
     Ry = jnp.asarray(_resize_matrix(h, img.shape[1]))
     Rx = jnp.asarray(_resize_matrix(w, img.shape[2]))
@@ -75,7 +75,7 @@ def build_pyramid(img: jnp.ndarray, n_levels: int, scale_factor: float):
     levels = [img]
     for l in range(1, n_levels):
         h, w = shapes[l]
-        levels.append(resize_bilinear_mxu(levels[-1], h, w))
+        levels.append(resize_bilinear_matmul(levels[-1], h, w))
     return levels
 
 
@@ -103,7 +103,7 @@ def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0):
 
 def _conv1d_axis(x: jnp.ndarray, k: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Valid-mode 1-D convolution along `axis` as a sum of shifted slices —
-    compiles to fused VPU adds, avoiding conv layout shuffles for tiny taps."""
+    compiles to fused adds, avoiding conv layout shuffles for tiny taps."""
     n = k.shape[0]
     L = x.shape[axis] - n + 1
     out = None

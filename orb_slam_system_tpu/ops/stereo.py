@@ -3,8 +3,8 @@
 Replaces reference Frame::ComputeStereoMatches (src/Frame.cc:446-620) and
 ComputeStereoFromRGBD (:623-644).
 
-TPU design: the reference's per-row candidate lists + per-keypoint sliding
-SAD become (a) one masked MXU Hamming distance matrix with row-band,
+Design: the reference's per-row candidate lists + per-keypoint sliding
+SAD become (a) one masked Hamming distance matrix with row-band,
 octave-band and disparity-range masks, and (b) a batched subpixel refinement
 that gathers an 11x(11+2R) strip per matched keypoint and evaluates all 2R+1
 SAD positions at once with a parabola fit — no scalar loops.
@@ -74,7 +74,7 @@ def stereo_match(
     # (reference src/Frame.cc:527-575 refines on mvImagePyramid[kpL.octave]
     # with octave-scaled coordinates; refining on level 0 was a documented
     # r1 parity deviation — removed here. The per-level pyramids are cheap
-    # MXU matmul resizes, and XLA CSEs them with the extractor's when
+    # matmul resizes, and XLA CSEs them with the extractor's when
     # traced in the same program.)
     w = SAD_W
     L = SAD_L

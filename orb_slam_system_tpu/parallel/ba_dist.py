@@ -1,11 +1,11 @@
-"""ICI-sharded global bundle adjustment.
+"""Edge-sharded global bundle adjustment over a device mesh.
 
 The implicit Schur-CG GBA (solvers/local_ba.bundle_adjust_cg) is built on
 edge-parallel reductions; this variant shards the EDGE list over a device
 mesh with `shard_map` — each device holds an edge shard (its observations'
 residuals/Jacobians) while cameras and points are replicated, and every
 edge-reduced quantity (normal-equation blocks, gradients, the Schur
-matvec's cross terms, robust costs) is a `psum` riding ICI. This is the
+matvec's cross terms, robust costs) is a `psum` over the mesh. This is the
 multi-chip analogue of the reference's single-process g2o GBA
 (src/Optimizer.cc:22-27) for maps whose observation count outgrows one
 chip — the same scale-out axis as parallel/pose_graph_dist.py.
@@ -74,6 +74,5 @@ def bundle_adjust_cg_sharded(
         out_specs=(rep, rep),
         check_vma=False,
     )
-    from orb_slam_system_tpu.utils.precision import f32_solver
-    Tcw, X = jax.jit(f32_solver(smapped))(prob_arrays)
+    Tcw, X = jax.jit(smapped)(prob_arrays)
     return Tcw, X

@@ -2,14 +2,14 @@
 
 The reference is a single-process, shared-memory system (SURVEY.md §2.4);
 multi-chip scale-out is this framework's extension axis (BASELINE.json
-config 5: batched EuRoC MH01-05 mapping). The parallelization is TPU-native:
+config 5: batched EuRoC MH01-05 mapping). The parallelization:
 
   * **dp over sequences** ('data' mesh axis): each device tracks a shard of
     independent sequences — extraction, matching, pose LM all batched.
   * **sp over keypoint slots** ('model' mesh axis): the Hamming distance
     matrix of the matching step is sharded over query keypoints, each
-    device computing its row block (popcount-as-matmul on its MXU).
-  * XLA collectives ride ICI: per-step global statistics (inlier counts,
+    device computing its row block (popcount-as-matmul).
+  * XLA collectives: per-step global statistics (inlier counts,
     matched features) are psum'd over the whole mesh; nothing is
     host-gathered mid-step.
 
@@ -101,7 +101,7 @@ def make_multiseq_step(mesh: Mesh, height: int, width: int,
                 T0, X, uv, jnp.ones(uv.shape[0], jnp.float32), ok,
                 fx, fy, cx, cy, axis_name="model")
         )(Tcw0, pt_loc, obs_xy, matched)
-        # ---- global statistics over the whole mesh (ICI collectives) -----
+        # ---- global statistics over the whole mesh (collectives) ---------
         # n_in is shard-local (each shard's inlier rows); sum over 'model'
         # for the per-sequence total, then over 'data' for the global one.
         n_in_tot = jax.lax.psum(jnp.sum(n_in), axis_name="model")
@@ -117,12 +117,6 @@ def make_multiseq_step(mesh: Mesh, height: int, width: int,
         out_specs=(P("data"), P(), P()),
         check_vma=False,
     )
-    # NO whole-step f32_solver wrap: pose_optimization already traces
-    # under its own @f32_solver scope, and a whole-program
-    # matmul_precision('highest') would also cover the bf16 Pallas
-    # descriptor kernel inside extractor._extract — exactly the global
-    # wrap that breaks its Mosaic lowering on real TPUs (see CLAUDE.md
-    # precision notes).
     step = jax.jit(smapped)
 
     S = mesh.shape["data"] * 2   # 2 sequences per data shard

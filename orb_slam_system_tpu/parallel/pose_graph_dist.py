@@ -1,12 +1,12 @@
-"""ICI-sharded Sim3 pose-graph optimization.
+"""Edge-sharded Sim3 pose-graph optimization over a device mesh.
 
 The single-chip essential-graph solver (solvers/pose_graph.py) is built on
 edge-parallel reductions and takes an `axis_name`: under `shard_map` each
 device computes residuals/Jacobians for its EDGE shard and every global
 quantity (gradient, block-Jacobi diagonal, CG matvec, LM costs) is a
-`psum` over the 'graph' axis riding ICI — the pose-graph analogue of
+`psum` over the 'graph' axis — the pose-graph analogue of
 data-parallel gradient aggregation (SURVEY.md §5: "pose-graph solves
-sharded over ICI if multi-chip"). Vertices are replicated (a few thousand
+sharded over the interconnect if multi-chip"). Vertices are replicated (a few thousand
 7-vectors — tiny next to edge work). This module is the thin mesh wrapper:
 pad the edge list to the shard multiple, shard it, call the same solver.
 """
@@ -50,8 +50,8 @@ def optimize_essential_graph_sharded(
     e_valid = pad(jnp.asarray(e_valid), False)
 
     def local(R0_, t0_, s0_, v_fixed_, v_valid_, ei, ej, eR, et, es, ev):
-        # The solver's own @f32_solver scope applies at trace time; the
-        # psums over `axis` make every device's solve globally identical.
+        # The psums over `axis` make every device's solve globally
+        # identical.
         return optimize_essential_graph(
             R0_, t0_, s0_, v_fixed_, v_valid_, ei, ej, eR, et, es, ev,
             n_iters=n_iters, cg_iters=cg_iters, axis_name=axis)

@@ -24,7 +24,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from orb_slam_system_tpu.utils.precision import f32_solver
 import numpy as np
 
 SIGMA = 1.0                 # reference Initializer ctor sigma
@@ -304,7 +303,6 @@ def _reconstruct_h(H21, pts1, pts2, inlier, K, sigma2):
 
 
 @functools.partial(jax.jit, static_argnames=())
-@f32_solver
 def initialize_two_view(
     pts1, pts2, valid, ransac_sets, K,
 ):

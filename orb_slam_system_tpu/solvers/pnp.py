@@ -5,7 +5,7 @@ Replaces reference PnPsolver (src/PnPsolver.cc): EPnP (Lepetit et al. 2009 —
 refinement) wrapped in adaptive RANSAC (SetRansacParameters :70-106,
 iterate :114-207), used by relocalization (src/Tracking.cc:796-884).
 
-TPU design (SURVEY.md §7.1): ALL RANSAC hypotheses are evaluated in one
+Design (SURVEY.md §7.1): ALL RANSAC hypotheses are evaluated in one
 batched pass — S vmapped EPnP solves on 4-point minimal sets + dense inlier
 scoring over all correspondences — instead of the reference's sequential
 early-exit loop. A final refinement re-runs EPnP on the best hypothesis's
@@ -17,7 +17,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from orb_slam_system_tpu.utils.precision import f32_solver
 import numpy as np
 
 CHI2_GATE = 5.991  # per-point gate scaled by octave sigma2 (reference :103-105)
@@ -103,7 +102,6 @@ def _reproj_chi2(R, t, Xw, uv, inv_sigma2, fx, fy, cx, cy):
 
 
 @jax.jit
-@f32_solver
 def epnp_ransac(Xw, uv, inv_sigma2, valid, sample_sets, fx, fy, cx, cy,
                 min_inliers: jnp.ndarray = 10):
     """Batched EPnP-RANSAC.
@@ -151,7 +149,6 @@ def epnp_ransac(Xw, uv, inv_sigma2, valid, sample_sets, fx, fy, cx, cy,
 
 
 @jax.jit
-@f32_solver
 def epnp_ransac_batch(Xw, uv, inv_sigma2, valid, sample_sets,
                       fx, fy, cx, cy, min_inliers: jnp.ndarray = 10):
     """epnp_ransac vmapped over C candidate hypotheses that share the same

@@ -6,12 +6,12 @@ covisibility(>=100 shared obs) edges; 20 LM iterations) and
 Optimizer::OptimizeSim3 (:1027-1222: single Sim3 vertex with paired
 forward/inverse projection edges, two-stage inlier filtering).
 
-TPU design: padded vertex/edge arrays; per-edge residuals and exact
+Design: padded vertex/edge arrays; per-edge residuals and exact
 Jacobians batched via vmap(jacfwd); the sparse normal equations are solved
 by preconditioned conjugate gradients whose matvec is two scatter-adds over
 the edge list (block-Jacobi preconditioner from the accumulated 7x7
 diagonal blocks) — no sparse-matrix library, and the same program shards
-over an ICI mesh by partitioning edges.
+over a device mesh by partitioning edges.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from orb_slam_system_tpu.utils.precision import f32_solver
 
 from orb_slam_system_tpu.utils import lie
 
@@ -40,7 +39,6 @@ def _edge_residual(xi_i, xi_j, S0_i, S0_j, Sji):
 
 @functools.partial(jax.jit,
                    static_argnames=("n_iters", "cg_iters", "axis_name"))
-@f32_solver
 def optimize_essential_graph(
     R0, t0, s0,            # f32[K,3,3], f32[K,3], f32[K] initial Sim3 (world->cam)
     v_fixed, v_valid,      # bool[K]
@@ -171,7 +169,6 @@ def optimize_essential_graph(
 
 
 @functools.partial(jax.jit, static_argnames=("n_iters",))
-@f32_solver
 def optimize_sim3(
     s0, R0, t0,            # initial S12 (maps KF2 camera frame -> KF1)
     P1, P2,                # f32[N,3] camera-frame points in KF1 / KF2

@@ -11,7 +11,7 @@ round 2, matching the reference (:393).
 Stereo edges carry a third residual component u_r - (u - bf/z) (the
 right-view column of a rectified pair); features with obs_ur < 0 are mono.
 
-TPU design: residuals/Jacobians for all N edges are one batched computation;
+Design: residuals/Jacobians for all N edges are one batched computation;
 the normal equations are a 6x6 solve; rounds and LM iterations are
 lax.fori_loop — the whole optimization is a single fused device program.
 """
@@ -21,7 +21,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from orb_slam_system_tpu.utils.precision import f32_solver
 
 from orb_slam_system_tpu.utils import lie
 
@@ -89,7 +88,6 @@ import functools
 
 @functools.partial(jax.jit,
                    static_argnames=("n_rounds", "n_iters", "axis_name"))
-@f32_solver
 def pose_optimization(
     Tcw0, Xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
     obs_ur=None, bf=0.0,

@@ -4,7 +4,7 @@ Replaces reference Initializer::Triangulate (src/Initializer.cc:654) and the
 per-pair triangulation in LocalMapping::CreateNewMapPoints (upstream
 semantics; the fork stubbed it, SURVEY.md §0.1 row 2).
 
-TPU design: the 4x4 DLT system per correspondence is solved for all N
+Design: the 4x4 DLT system per correspondence is solved for all N
 correspondences at once via a batched symmetric eigendecomposition of A^T A
 (smallest eigenvector == smallest right singular vector of A), which XLA
 batches cleanly — no per-point SVD loop.
@@ -15,11 +15,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from orb_slam_system_tpu.utils.precision import f32_solver
 
 
 @jax.jit
-@f32_solver
 def triangulate_dlt(uv1, uv2, P1, P2):
     """uv1, uv2: f32[N,2] pixel coords in images 1/2; P1, P2: f32[3,4]
     projection matrices. Returns X f32[N,3] (homogeneous-normalized) and

@@ -5,8 +5,8 @@ the drivers (SURVEY.md §5). This subsystem upgrades that contract:
   * per-frame structured records (state, keypoints, matches, inliers, map
     sizes, per-stage milliseconds) emitted as JSON lines;
   * stage timers as context managers;
-  * jax.profiler trace capture around a frame window for TPU kernel-level
-    inspection.
+  * jax.profiler trace capture around a frame window for device
+    kernel-level inspection.
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ class Telemetry:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """Capture a jax.profiler trace (TensorBoard-compatible) around a code
-    region — kernel-level TPU visibility for the hot path."""
+    region — kernel-level device visibility for the hot path."""
     import jax
     jax.profiler.start_trace(log_dir)
     try:

@@ -68,8 +68,7 @@ def test_worker_batch_guarantees_ba_per_batch():
     once per EXPANSION BATCH, guaranteed, even when the tracker refills
     the queue before the refinement phase. The round-4 drain-release A/B
     failed precisely because BA/culling were gated on an empty queue and
-    starved under ~1 KF/frame demand (docs/ROADMAP.md
-    'Drain-release-on-expansion A/B')."""
+    starved under ~1 KF/frame demand."""
     slam, _ = _run(async_mapping=False, n_frames=14)
     mapper = slam.local_mapper
     kf_ids = list(slam.arena.kfs)
@@ -156,8 +155,7 @@ def test_bounded_queue_keyframe_admission():
     pending (upstream's stereo/RGB-D busy-path semantics,
     src/Tracking.cc:609-615, extended to monocular — without it a slow
     mapper suppresses the keyframe decision's own demand signal and the
-    map settles into a thin equilibrium; docs/ROADMAP.md 'Async-mapping
-    quality at map scale')."""
+    map settles into a thin equilibrium)."""
     W, H = 640, 480
     cam = CameraConfig(fx=520.0, fy=520.0, cx=W / 2, cy=H / 2, fps=30.0,
                        width=W, height=H)

@@ -2,8 +2,8 @@
 
 The shortened 90-frame circle (degraded middle segment accumulating real
 drift) runs in the DEFAULT suite so the headline capability —
-detect -> Sim3 -> correct -> essential graph -> GBA — regresses loudly
-(VERDICT r1 weak #5). The full 170-frame variant stays env-gated
+detect -> Sim3 -> correct -> essential graph -> GBA — regresses loudly.
+The full 170-frame variant stays env-gated
 (ORB_SLAM_RUN_LONG_E2E=1).
 """
 

@@ -1,6 +1,6 @@
 """KITTI-scale endurance gate (env-gated: ORB_SLAM_RUN_ENDURANCE=1).
 
-VERDICT r2 #2: one 1000+ frame synthetic sequence with multiple loop
+One 1000+ frame synthetic sequence with multiple loop
 closures, profiling per-stage host time as the map passes 300 keyframes.
 The reference's own evidence of scale is a committed 4541-frame KITTI-
 format trajectory (/root/reference/CameraTrajectory.txt); its scaling
@@ -8,7 +8,7 @@ mechanisms (windowed BA, KF/point culling, capped local map — SURVEY.md
 §5 long-context row) are what this run exercises end to end.
 
 Run manually:  ORB_SLAM_RUN_ENDURANCE=1 python -m pytest tests/test_endurance.py -s
-(~1 h on this host's CPU; minutes on the TPU.)
+(~1 h on the CPU.)
 """
 
 import os

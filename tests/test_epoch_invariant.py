@@ -1,4 +1,4 @@
-"""Machine-checked correction-exclusion invariant (VERDICT r4 #4).
+"""Machine-checked correction-exclusion invariant.
 
 The round-4 race: a map-wide pose rewrite (loop correction / essential
 graph / GBA apply) landing inside one of the tracker's

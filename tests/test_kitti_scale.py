@@ -1,6 +1,6 @@
 """KITTI-00-scale stress gate (env-gated: ORB_SLAM_RUN_KITTI_SCALE=1).
 
-VERDICT r3 #5: a ~4000-frame drive-style synthetic sequence (long
+A ~4000-frame drive-style synthetic sequence (long
 straights + turns + same-direction revisits) through pipelined monocular
 tracking — stresses keyframe culling churn, spanning-tree surgery,
 trajectory export through culled references, and memory growth at the

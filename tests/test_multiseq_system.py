@@ -1,6 +1,6 @@
 """Full-system batched multi-sequence mode (BASELINE.json config 5).
 
-VERDICT r2 #5: S complete Systems (tracking + mapping + loop closing)
+S complete Systems (tracking + mapping + loop closing)
 whose per-frame extraction runs as ONE batched device program; each
 produces its own trajectory. parallel/multiseq.py remains the sharded
 multi-chip front-end microbenchmark (exercised by dryrun_multichip).

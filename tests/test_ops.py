@@ -178,26 +178,19 @@ def test_binned_descriptors_match_dense_oracle():
     """The sorted single-bin-chunk descriptor path must be bit-identical to
     the dense all-bins formulation (integer-valued patches make the sign of
     the f32-accumulated contraction order-independent)."""
-    from orb_slam_system_tpu.ops import brief
     from orb_slam_system_tpu.ops.brief import (
         PATCH_RADIUS, compute_descriptors, compute_descriptors_dense)
 
     rng = np.random.default_rng(3)
     P = 2 * PATCH_RADIUS + 1
-    brief.FORCE_BINNED = True
-    try:
-        for B, N in [(1, 5), (2, 37), (3, 130)]:
-            patches = rng.integers(0, 256, size=(B, N, P, P)).astype(
-                np.float32)
-            angles = rng.uniform(0, 2 * np.pi, size=(B, N)).astype(
-                np.float32)
-            got = np.asarray(compute_descriptors(
-                jnp.asarray(patches), jnp.asarray(angles)))
-            want = np.asarray(compute_descriptors_dense(
-                jnp.asarray(patches), jnp.asarray(angles)))
-            np.testing.assert_array_equal(got, want)
-    finally:
-        brief.FORCE_BINNED = False
+    for B, N in [(1, 5), (2, 37), (3, 130)]:
+        patches = rng.integers(0, 256, size=(B, N, P, P)).astype(np.float32)
+        angles = rng.uniform(0, 2 * np.pi, size=(B, N)).astype(np.float32)
+        got = np.asarray(compute_descriptors(
+            jnp.asarray(patches), jnp.asarray(angles)))
+        want = np.asarray(compute_descriptors_dense(
+            jnp.asarray(patches), jnp.asarray(angles)))
+        np.testing.assert_array_equal(got, want)
 
 
 def test_top_n_select_matches_lax_top_k_set():
@@ -230,8 +223,8 @@ def test_select_keypoints_multi_matches_per_level(frame):
     shapes = [(120, 160), (100, 133), (83, 111)]
     scores = []
     for (h, w) in shapes:
-        from orb_slam_system_tpu.ops.pyramid import resize_bilinear_mxu
-        lvl = resize_bilinear_mxu(img, h, w)
+        from orb_slam_system_tpu.ops.pyramid import resize_bilinear_matmul
+        lvl = resize_bilinear_matmul(img, h, w)
         scores.append(fast_ops.fast_score_map(lvl, border=19))
     budgets = [96, 64, 32]
     multi = fast_ops.select_keypoints_multi(
@@ -244,3 +237,52 @@ def test_select_keypoints_multi_matches_per_level(frame):
         np.testing.assert_array_equal(np.asarray(xy_m)[v], np.asarray(xy)[v])
         np.testing.assert_allclose(np.asarray(resp_m)[v],
                                    np.asarray(resp)[v], rtol=1e-6)
+
+
+def _descriptor_case(shape, rng):
+    from orb_slam_system_tpu.ops.brief import (
+        PATCH_RADIUS, compute_descriptors, compute_descriptors_dense)
+    B, N = shape
+    P = 2 * PATCH_RADIUS + 1
+    patches = jnp.asarray(
+        rng.integers(0, 256, size=(B, N, P, P)).astype(np.float32))
+    angles = jnp.asarray(
+        rng.uniform(0, 2 * np.pi, size=(B, N)).astype(np.float32))
+    got = compute_descriptors(patches, angles)
+    return np.asarray(got), np.asarray(compute_descriptors_dense(
+        patches, angles)), 0.0
+
+
+def _seg_sum_case(shape, rng):
+    from orb_slam_system_tpu.solvers.local_ba import _seg_sum
+    n, E, width = shape
+    lead = n if isinstance(n, tuple) else (n,)
+    idx = tuple(rng.integers(0, k, size=E).astype(np.int32) for k in lead)
+    blocks = rng.normal(size=(E,) + width).astype(np.float32)
+    want = np.zeros(lead + width, np.float64)
+    np.add.at(want, idx, blocks.astype(np.float64))
+    got = _seg_sum(tuple(jnp.asarray(i) for i in idx) if len(lead) > 1
+                   else jnp.asarray(idx[0]), jnp.asarray(blocks), n)
+    # f32 sums of up to E/n terms of unit size, in any order.
+    return np.asarray(got, np.float64), want, 1e-4 * np.sqrt(E)
+
+
+@pytest.mark.parametrize("path,shape", [
+    ("descriptors", (1, 200)),             # straddles a 128-row chunk
+    ("descriptors", (4, 129)),
+    ("seg_sum", (16, 8192, (6, 6))),        # camera Hessian blocks
+    ("seg_sum", (2048, 8192, (3,))),        # point gradients
+    ("seg_sum", ((16, 512), 2048, (6, 3))),  # camera-point cross blocks
+])
+def test_kept_paths_match_oracles(path, shape):
+    """The one descriptor path (bin-sorted chunks) and the one BA
+    segment-sum path (scatter-add) against their plain oracles: the
+    all-bins dense contraction bit for bit, and a float64 np.add.at."""
+    rng = np.random.default_rng(11)
+    case = {"descriptors": _descriptor_case, "seg_sum": _seg_sum_case}[path]
+    got, want, atol = case(shape, rng)
+    assert got.shape == want.shape
+    if atol == 0.0:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)

@@ -1,6 +1,6 @@
 """Real-scale vocabulary gate (env-gated: ORB_SLAM_RUN_VOCAB_FULL=1).
 
-VERDICT r3 #2: the shipped ORBvoc.txt is k=10 L=6 (~1.11M nodes, ~140 MB;
+The shipped ORBvoc.txt is k=10 L=6 (~1.11M nodes, ~140 MB;
 reference Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:1342-1420); the
 loader had only been scale-proven to 111k nodes. This generates a
 full-size synthetic file (tools/make_full_vocab.py — structure-identical,

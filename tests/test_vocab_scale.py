@@ -3,8 +3,8 @@
 The stock ORBvoc.txt is k=10, L=6 (~1.08M nodes); generating that here
 would dominate suite time, so this exercises the same SHAPES two levels
 down (k=10, L=4 -> 11,111 nodes) plus the exact text format, npz caching,
-and a brute-force-checked descent — the failure modes called out in
-VERDICT r1 weak #9 (inverted-index sizes and descent batch shapes change
+and a brute-force-checked descent — the failure modes of
+the k=10 regime (inverted-index sizes and descent batch shapes change
 in the k=10 regime vs the toy test vocabularies).
 """
 
@@ -117,7 +117,7 @@ def test_scale_bow_scoring_discriminates(big_vocab):
 
 # ---------------------------------------------------------------------------
 # ORBvoc-class scale: k=10, L=5 -> 111,111 nodes (one level below the real
-# 1.08M-node asset; same shape regime). VERDICT r2 #3: device descent ==
+# 1.08M-node asset; same shape regime). Device descent ==
 # numpy oracle bit-equal + measured transform latency for 1000 descriptors.
 # ---------------------------------------------------------------------------
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""One-command real-dataset validation (VERDICT r4 #9: the runbook glue).
+"""One-command real-dataset validation (the runbook glue).
 
 The reference validates by running its dataset drivers and evaluating the
 written trajectory against ground truth offline (SURVEY.md §4). This CLI

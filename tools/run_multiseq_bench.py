@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Record the batched multi-sequence throughput artifact (VERDICT r4 #5:
-BASELINE config 5's scale-out showcase — S complete SLAM systems, shared
-batched extraction, aggregate fps + per-sequence ATE).
+"""Record the batched multi-sequence throughput artifact (BASELINE config
+5's scale-out showcase — S complete SLAM systems, shared batched
+extraction, aggregate fps + per-sequence ATE).
 
 Runs examples/multiseq_throughput.run_full on the current backend and
 writes MULTISEQ_r{N}.json at the repo root.
 
 Usage: python tools/run_multiseq_bench.py [round_n] [n_seq] [n_frames]
-       (on TPU: no env overrides)
+       (on the GPU: the default backend)
 """
 
 import json

@@ -3,12 +3,12 @@
 
 Thin CLI over orb_slam_system_tpu.utils.warmup.warm() (the same pass
 System(..., prewarm=True) runs at construction). Run once per deployment
-target — or ship ~/.cache/orb_slam_tpu_xla with the image — to remove
-the first-run compile cliff (docs/ROADMAP.md round-4 TPU profiles:
-cold 0.2 fps vs warm 19.2 fps on the KF-heavy async profile).
+target, or ship the cache directory (`$JAX_COMPILATION_CACHE_DIR`, else
+`.jax_cache` in the checkout) with the image, to remove the first-run
+compile cliff.
 
 Usage: python tools/warm_cache.py [n_frames_per_pass]
-       (no env overrides -> warms the real TPU backend's cache)
+       (warms the cache of the backend JAX picks: the GPU when present)
 """
 
 import os
