@@ -16,9 +16,11 @@ import chip_smoke  # noqa: E402
 import orb_slam_system_tpu  # noqa: E402
 
 
-def test_chip_smoke_refuses_cpu():
+@pytest.mark.parametrize("args", [[], ["--tf32-control"]])
+def test_chip_smoke_refuses_cpu(args):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                          *args],
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode != 0

@@ -125,6 +125,19 @@ def test_gba_abort_discards_result(rng):
     assert not closer.poll_gba()
 
 
+def test_gba_abort_after_finish_discards_result(rng):
+    """A solve that finished before abort() (its last abort check already
+    passed) is superseded all the same."""
+    arena, kfs, world = build_map(rng)
+    closer = make_closer(arena)
+    snap = closer._build_gba_problem()
+    closer.gba.start(snap, closer.cfg.camera, sync=False)
+    closer.gba.join()
+    closer.gba.abort()
+    assert closer.gba.take_result() is None
+    assert not closer.poll_gba()
+
+
 def test_gba_async_roundtrip(rng):
     arena, kfs, world = build_map(rng)
     closer = make_closer(arena)
